@@ -1,6 +1,6 @@
 """Analytic Anderson bath functions Delta(z), G0(z), G0^-1(z).
 
-TPU-native re-design of ED_BATH_FUNCTIONS.f90:25-195: pure jnp functions of
+JAX re-design of ED_BATH_FUNCTIONS.f90:25-195: pure jnp functions of
 (config, hloc, bath, z). Being jax-pure they are `vmap`-batched over
 frequencies and — crucially — differentiable: the chi2 bath fit gets its
 gradients from `jax.grad` instead of the reference's hand-derived

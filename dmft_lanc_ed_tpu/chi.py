@@ -1,6 +1,6 @@
 """Susceptibilities and phonon Green's function.
 
-TPU-native re-design of ED_GF_CHISPIN.f90 / ED_GF_CHIDENS.f90 /
+JAX re-design of ED_GF_CHISPIN.f90 / ED_GF_CHIDENS.f90 /
 ED_GF_PHONON.f90: hermitian-operator Krylov response functions. The operator
 is applied diagonally (S_z, n) or block-tridiagonally (x = b + b^+) within the
 *same* sector, tridiagonalized with the jitted Lanczos scan, and the resulting
@@ -118,7 +118,7 @@ def _diag_op_excite(cfg, sec, vec, diag_op):
     """vvinit = O|psi> for a diagonal operator O[dw, up] (same sector).
 
     Host numpy: the per-sector-shape multiply would otherwise compile one
-    device executable per sector through the remote compiler (cold tail)."""
+    device executable per sector shape."""
     v = np.asarray(vec).reshape(sec.dim_ph, sec.dim_dw, sec.dim_up)
     return (v * np.asarray(diag_op)[None]).reshape(-1)
 
@@ -183,32 +183,14 @@ class _ChiBatcher:
             (vv / np.sqrt(norm2), norm2, state_e, therm, chi))
 
     def run(self) -> None:
-        import logging
-        log = logging.getLogger("dmft_lanc_ed_tpu")
         from .utils.observability import kernel_stats
-        from .ops.blocksparse import BlockSparseSectorOp
-        from .ops.bs_chain import gf_chain_applicable, gf_tridiag_batch
         from .gf import unwrap_op
-        n_chain = n_scan = 0
         for sqn, tasks in self.groups.items():
             op, op_apply = self.hcache(sqn)
             op, _, pad_batch = unwrap_op(op)
             dim = tasks[0][0].shape[0]
             m_dim = dim if pad_batch is None else op.dim
             m = min(m_dim, self.cfg.lanc_ngfiter)
-            if (isinstance(op, BlockSparseSectorOp)
-                    and dim >= self.cfg.ed_gf_chain_min_dim
-                    and gf_chain_applicable(op, m)):
-                # fused f32 chain kernel (same contract as the GF batcher)
-                v0 = jnp.asarray(np.stack([np.asarray(t[0])
-                                           for t in tasks]))
-                kernel_stats.record(m * len(tasks), op.nnz)
-                n_chain += len(tasks)
-                a_b, b_b = gf_tridiag_batch(op, v0, m)
-                for t, a, b in zip(tasks, a_b, b_b):
-                    _, norm2, state_e, therm, chi = t
-                    _store_poles(self.cfg, a, b, norm2, state_e, therm, chi)
-                continue
             # largest power of two within the byte budget, so the pow2
             # batch padding below never exceeds it (ADVICE r2)
             cap = max(1, self.max_bytes // max(dim * 8, 1))
@@ -219,7 +201,7 @@ class _ChiBatcher:
                 # cheap) so executables key on a stable batch size: the
                 # state-list size fluctuates across DMFT iterations (GS
                 # degeneracy changes) and every fresh (bucket, pow2-B)
-                # pair was a new remote compile mid-loop
+                # pair would be a new compile mid-loop
                 bpad = 8
                 while bpad < len(chunk):
                     bpad *= 2
@@ -231,16 +213,12 @@ class _ChiBatcher:
                 v0 = (pad_batch(v0) if pad_batch is not None
                       else jnp.asarray(v0))
                 kernel_stats.record(m * len(chunk), getattr(op, "nnz", 0))
-                n_scan += len(chunk)
                 a_b, b_b = lanczos_tridiag_batched(op, v0, m, op_apply)
                 a_np = np.asarray(a_b)[:len(chunk)]
                 b_np = np.asarray(b_b)[:len(chunk)]
                 for t, a, b in zip(chunk, a_np, b_np):
                     _, norm2, state_e, therm, chi = t
                     _store_poles(self.cfg, a, b, norm2, state_e, therm, chi)
-        if n_chain or n_scan:
-            log.info("chi batch routing: %d excitations via fused chain "
-                     "kernel, %d via batched XLA scan", n_chain, n_scan)
         self.groups.clear()
 
 

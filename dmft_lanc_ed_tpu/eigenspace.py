@@ -1,6 +1,6 @@
 """Eigenstate store.
 
-TPU-native replacement of ED_EIGENSPACE.f90: the reference keeps an
+JAX replacement of ED_EIGENSPACE.f90: the reference keeps an
 energy-ordered linked list of `sparse_estate` with MPI-distributed vector
 chunks; here it is a plain immutable-ish Python list of :class:`EigenState`
 holding device arrays (sharded or replicated — sharding is a property of the

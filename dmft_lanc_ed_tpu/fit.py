@@ -1,6 +1,6 @@
 """Chi^2 bath fitting.
 
-TPU-native re-design of ED_FIT_CHI2.f90 + ED_FIT_CHI2/fitgf_*.f90: the
+JAX re-design of ED_FIT_CHI2.f90 + ED_FIT_CHI2/fitgf_*.f90: the
 reference hand-derives dDelta/d(eps,V) gradients and runs a Fortran77 CG;
 here the Anderson functions are pure JAX, so the exact gradient of
 

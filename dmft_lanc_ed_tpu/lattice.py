@@ -6,8 +6,8 @@ per-site local Hamiltonians and optional per-site interaction overrides. The
 reference round-robins sites over MPI ranks and AllReduces [Nlat, ...]
 arrays; here each site solve is a device-accelerated EDSolver and the site
 loop runs on host (site-level device parallelism — the reference's
-inter-site embarrassing parallelism — maps onto multiple TPU chips via one
-process per chip or, later, vmapped batched sectors).
+inter-site embarrassing parallelism — maps onto multiple GPUs via one
+process per device or, later, vmapped batched sectors).
 
 Also carries the per-site chi2 fit loop (ed_chi2_fitgf lattice overload,
 ED_FIT_CHI2.f90:151-240) and per-site adaptive diag state persistence

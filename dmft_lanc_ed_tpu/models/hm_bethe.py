@@ -97,7 +97,8 @@ def run_dmft(cfg: EDConfig, wband=1.0, h0=None, wmixing: float = 0.5,
                      dens=res.observables.dens.copy(),
                      docc=res.observables.docc.copy(),
                      egs=res.observables.egs, xmu=xmu,
-                     time=time.perf_counter() - t0)
+                     time=time.perf_counter() - t0,
+                     timings=dict(res.timings))
         history.append(entry)
         if verbose:
             log.info("DMFT loop %02d: err=%.3e dens=%s docc=%s (%.1fs)",

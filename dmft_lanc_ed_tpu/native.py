@@ -1,8 +1,10 @@
 """ctypes bindings for the native host-side builder (native/edcore.cpp).
 
-Lazily builds/loads libedcore.so; every entry point has a numpy fallback in
-:mod:`.sectors`, so the package works without a compiler. Enable/disable via
-the DMFT_ED_NATIVE env var (default: use if loadable).
+libedcore.so is not tracked: the first use builds it from edcore.cpp with
+native/build.sh (again whenever the source is newer), then loads it. Every
+entry point has a numpy fallback in :mod:`.sectors`, so the package works
+without a compiler. Enable/disable via the DMFT_ED_NATIVE env var (default:
+use if loadable).
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ def load() -> Optional[ctypes.CDLL]:
     if os.environ.get("DMFT_ED_NATIVE", "1") == "0":
         return None
     so = os.path.join(_root(), "libedcore.so")
-    if not os.path.exists(so):
+    src = os.path.join(_root(), "edcore.cpp")
+    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
         try:
             subprocess.run(["sh", os.path.join(_root(), "build.sh")],
                            check=True, capture_output=True, timeout=120)

@@ -1,6 +1,6 @@
 """Davidson eigensolver (lanc_method=dvdson).
 
-TPU-native replacement of the reference's DVDSON path (`sp_dvdson_eigh`,
+JAX replacement of the reference's DVDSON path (`sp_dvdson_eigh`,
 ED_DIAG.f90:189-204; SF_SP_LINALG dvdson): expansion vectors are
 *diagonally preconditioned residuals* t = r / (theta - D) instead of the
 Lanczos recurrence — the classic Davidson trade: one extra elementwise pass

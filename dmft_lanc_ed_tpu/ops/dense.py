@@ -1,35 +1,32 @@
-"""Dense tensor-product matvec backend — the MXU formulation.
+"""Dense tensor-product matvec backend — the matmul formulation.
 
-TPU-native re-design of the hot sector SpMV (reference hot loop:
+JAX re-design of the hot sector SpMV (reference hot loop:
 spMatVec_main / spMatVec_mpi_main, ED_HAMILTONIAN_SPARSE_HxV.f90:391-485,
-568-694). The reference streams CSR rows; the round-1 XLA formulation
-streamed ELL row-gathers and hit the measured ~96 GB/s TPU gather wall
-(BASELINE.md). This backend removes gathers entirely by exploiting the
-tensor-product structure
+568-694). The reference streams CSR rows; the ELL backend (ops/matvec.py)
+streams row-gathers. This backend removes gathers entirely by exploiting
+the tensor-product structure
 
     H = 1_dw (x) H_up + H_dw (x) 1_up + D (+ phonon/e-ph/non-local terms):
 
 the one-spin hop factors are tiny (DimUp x DimUp, a few MB) so the sector
-matvec over V[DimDw, DimUp] becomes two *dense matmuls* on the MXU
+matvec over V[DimDw, DimUp] becomes two *dense matmuls*
 
     Y = D . V  +  V @ H_up  +  H_dw @ V          (H_up/H_dw symmetric)
 
 plus small batched matmuls for the phonon / e-ph / Jx-Jp tensor products.
-The dense factors waste FLOPs on zeros (fill ~ Ns/DimUp), but the MXU is
-2-3 orders of magnitude faster than the gather path, so the dense form wins
-for DimUp up to several thousand (every practically diagonalizable sector).
+The dense factors spend 2*dim*(DimUp+DimDw) FLOPs on a matvec whose
+nonzeros are ~dim*Ns, but a matmul runs on the GPU's FP64 tensor cores
+with no gathers; on the H100 it is the faster stored form (PERF.md).
 
 Two precision modes:
 
-- f64 (``matvec_dense_flat``): exact; on CPU this is BLAS dgemm (fast), on
-  TPU f64 matmuls are emulated (use mixed there).
+- f64 (``matvec_dense_flat``): exact; BLAS dgemm on the CPU, FP64 tensor
+  cores on the GPU.
 - mixed (``matvec_dense_mixed_flat``): factors and vector cast to f32,
-  matmuls with ``precision=HIGHEST`` (6-pass bf16 ~ f32-true products,
-  f32 accumulation), diagonal applied in f64 on the VPU. Relative matvec
-  error ~1e-7; the ground-state path recovers f64 eigenvalues via the
-  Rayleigh-Ritz polish in :func:`..ops.lanczos.refine_eigenpairs`.
-- fast (``matvec_dense_fast_flat``): same with ``precision=HIGH``
-  (3-pass bf16), ~2x the matmul throughput at ~1e-6 matvec error.
+  matmuls with ``precision=HIGHEST`` (f32-true products, f32
+  accumulation), diagonal applied in f64. Relative matvec error ~1e-7;
+  the ground-state path recovers f64 eigenvalues via the Rayleigh-Ritz
+  polish in :func:`..ops.lanczos.refine_eigenpairs`.
 
 All applies accept the natural-shape vector ([DimDw, DimUp] or
 [DimPh, DimDw, DimUp]) via :func:`matvec_dense` — this is the form the
@@ -52,7 +49,6 @@ from ..hamiltonian import SectorHamiltonian, build_sector_hamiltonian
 from ..sectors import Sector
 
 _HIGHEST = jax.lax.Precision.HIGHEST
-_HIGH = jax.lax.Precision.HIGH
 
 
 @jax.tree_util.register_dataclass
@@ -155,7 +151,7 @@ def build_dense_op(cfg: EDConfig, sec: Sector, hloc: np.ndarray, bath: Bath,
 def _apply_dense(op: DenseSectorOp, v: jnp.ndarray, hup, hdw, nd_a, nd_b,
                  precision) -> jnp.ndarray:
     """Shared body: matmul terms at `precision` in hup.dtype, diagonal and
-    phonon-diagonal terms in the vector's own dtype (f64 on the VPU)."""
+    phonon-diagonal terms in the vector's own dtype (f64)."""
     vc = v.astype(hup.dtype)
     # up hops: contract the last axis; hup symmetric so no transpose needed
     y32 = jnp.matmul(vc, hup, precision=precision)
@@ -166,7 +162,7 @@ def _apply_dense(op: DenseSectorOp, v: jnp.ndarray, hup, hdw, nd_a, nd_b,
     else:
         y32 = y32 + jnp.matmul(hdw, vc, precision=precision)
     if nd_a is not None:
-        # sum_t B_t @ V @ A_t^T  — batched MXU matmuls
+        # sum_t B_t @ V @ A_t^T  — batched matmuls
         va = jnp.einsum("...du,tau->t...da", vc, nd_a, precision=precision)
         y32 = y32 + jnp.einsum("tde,t...ea->...da", nd_b, va,
                                precision=precision)
@@ -190,12 +186,6 @@ def matvec_dense_mixed(op: DenseSectorOp, v: jnp.ndarray) -> jnp.ndarray:
                         _HIGHEST)
 
 
-def matvec_dense_fast(op: DenseSectorOp, v: jnp.ndarray) -> jnp.ndarray:
-    """Fast mixed-precision: f32 matmuls at HIGH (3-pass bf16)."""
-    return _apply_dense(op, v, op.hup32, op.hdw32, op.nd_a32, op.nd_b32,
-                        _HIGH)
-
-
 # --------------------------------------------------------------------------
 # flat-vector interfaces (reference linear index order)
 # --------------------------------------------------------------------------
@@ -213,7 +203,3 @@ def matvec_dense_mixed_flat(op: DenseSectorOp, v_flat: jnp.ndarray
                             ) -> jnp.ndarray:
     return matvec_dense_mixed(op, _reshape(op, v_flat)).reshape(-1)
 
-
-def matvec_dense_fast_flat(op: DenseSectorOp, v_flat: jnp.ndarray
-                           ) -> jnp.ndarray:
-    return matvec_dense_fast(op, _reshape(op, v_flat)).reshape(-1)

@@ -1,6 +1,6 @@
 """Matrix-free (direct) sector matvec.
 
-TPU-native re-design of ED_HAMILTONIAN_DIRECT_HxV.f90 + direct/*.f90
+JAX re-design of ED_HAMILTONIAN_DIRECT_HxV.f90 + direct/*.f90
 (ED_SPARSE_H=F): instead of storing ELL hop tables, the connectivity of each
 single-particle hop term is recomputed on device from bit operations on the
 sector's state masks each matvec — trading FLOPs (popcount + binary search)

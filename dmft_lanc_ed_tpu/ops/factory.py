@@ -5,20 +5,13 @@ The reference binds `spHtimesV_p` to stored/direct variants at sector setup
 apply_fn) chosen by cfg.ed_backend / cfg.ed_sparse_h / cfg.ed_precision:
 
 - "ell" (stored)  : tensor-product ELL factors, row-gather matvec
-- "dense"         : dense tensor-product factors, MXU matmuls (the TPU
-                    production backend; honors ed_precision f64/mixed/fast)
-- "pallas"        : band-sparse fused Pallas kernel (RCM-permuted factors,
-                    f32 chain, fused diagonal — see ops/blocksparse.py)
+- "dense"         : dense tensor-product factors, matmul matvec (the GPU
+                    default; honors ed_precision f64/mixed)
 - "direct"        : matrix-free, connectivity from bit ops on device
-- "auto"          : honors ed_sparse_h (True -> stored, False -> direct)
-
-Fallbacks are logged (never silent): direct -> ell for orbital-resolved
-sectors; pallas -> dense where the kernel does not apply (phonon / Jx-Jp
-sectors).
+- "auto"          : per platform (see :func:`resolve_backend`)
 """
 from __future__ import annotations
 
-import logging
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -27,109 +20,73 @@ from ..bath import Bath
 from ..config import EDConfig
 from ..hamiltonian import build_sector_hamiltonian
 from ..sectors import Sector
-from .dense import (DenseSectorOp, build_dense_op, matvec_dense,
-                    matvec_dense_fast, matvec_dense_fast_flat,
-                    matvec_dense_flat, matvec_dense_mixed,
-                    matvec_dense_mixed_flat)
-from .direct import apply_direct, build_direct_op, matvec_direct_flat
-from .matvec import apply_h, matvec_flat
+from .dense import build_dense_op, matvec_dense_flat, matvec_dense_mixed_flat
+from .direct import build_direct_op, matvec_direct_flat
+from .matvec import matvec_flat
 
-log = logging.getLogger("dmft_lanc_ed_tpu")
-
-
-def direct_supported(cfg: EDConfig) -> bool:
-    """Both QN schemes are supported: orbital-resolved sectors use composite
-    full-Ns masks (sectors.py), so the bit-op connectivity is identical."""
-    return True
-
+PLATFORMS = ("cpu", "gpu")
 
 _DENSE_APPLY = {"f64": matvec_dense_flat,
-                "mixed": matvec_dense_mixed_flat,
-                "fast": matvec_dense_fast_flat}
+                "mixed": matvec_dense_mixed_flat}
 
 
-def apply_is_exact(op_apply: Callable) -> bool:
-    """Whether the production apply is f64-exact (no polish needed)."""
-    from .blocksparse import matvec_bs_flat
-    return op_apply not in (matvec_dense_mixed_flat, matvec_dense_fast_flat,
-                            matvec_bs_flat)
-
-# flat apply -> natural-shape apply (used by the sharded production path)
-ND_APPLY = {matvec_flat: apply_h,
-            matvec_dense_flat: matvec_dense,
-            matvec_dense_mixed_flat: matvec_dense_mixed,
-            matvec_dense_fast_flat: matvec_dense_fast,
-            matvec_direct_flat: apply_direct}
+def polish_apply(op_apply: Callable) -> Optional[Callable]:
+    """The f64-exact apply that polishes eigenpairs found with a mixed-
+    precision apply, or None when the production apply is already exact."""
+    return matvec_dense_flat if op_apply is matvec_dense_mixed_flat else None
 
 
-def _on_accelerator() -> bool:
+def platform() -> str:
+    """The JAX default platform, one of :data:`PLATFORMS`. Any other
+    platform raises: the defaults below were chosen by measurement on these
+    two, and an untested one gets no silent default."""
     import jax
-    return jax.default_backend() != "cpu"
+    p = jax.default_backend()
+    if p not in PLATFORMS:
+        raise RuntimeError(f"unsupported JAX platform {p!r}; this solver "
+                           f"has defaults for {PLATFORMS} only")
+    return p
 
 
 def resolve_backend(cfg: EDConfig) -> str:
-    """ed_backend="auto" resolves per platform: the band-sparse fused
-    Pallas kernel on accelerators — the fastest measured backend (199
-    Gnnz/s vs dense 68-116, BASELINE.md round 3), with logged per-sector
-    fallbacks to dense where the kernel does not apply (phonon/Jx-Jp/VMEM,
-    `make_sector_op`) — and the stored ELL row-gather on CPU (where
-    BLAS-free sparse streaming wins and dense f64 matmuls are O(dim^1.5)
-    wasted FLOPs). ed_sparse_h=F dials the matrix-free direct backend, as
-    in the reference (ED_INPUT_VARS.f90:151)."""
+    """ed_backend="auto" resolves per platform. ed_sparse_h=F dials the
+    matrix-free direct backend, as in the reference (ED_INPUT_VARS.f90:151).
+    Stored factors then run as
+
+    - "gpu": dense tensor-product factors in f64 — two matmuls per matvec
+      on the FP64 tensor cores, no gathers (timings in PERF.md);
+    - "cpu": the ELL row-gather, where sparse streaming wins and dense f64
+      matmuls spend O(dim^1.5) FLOPs on zeros."""
     backend = cfg.ed_backend
     if backend == "auto":
         if not cfg.ed_sparse_h:
             return "direct"
-        return "pallas" if _on_accelerator() else "ell"
+        return {"gpu": "dense", "cpu": "ell"}[platform()]
     return backend
 
 
 def resolve_precision(cfg: EDConfig) -> str:
-    """ed_precision="auto": f32 MXU matmuls + f64 Rayleigh-Ritz polish on
-    accelerators (f64 matmuls are emulated there), exact f64 on CPU."""
+    """ed_precision="auto": exact f64 on both platforms. The GPU runs f64
+    matmuls on its FP64 tensor cores; the f32 "mixed" mode is slower per
+    matvec there, compiles more and needs a Rayleigh-Ritz polish
+    (PERF.md)."""
     prec = cfg.ed_precision
     if prec == "auto":
-        return "mixed" if _on_accelerator() else "f64"
+        platform()              # an unsupported platform raises
+        return "f64"
     return prec
-
-
-def exact_apply(op) -> Optional[Callable]:
-    """f64-exact flat apply for the given op (polish path), or None if the
-    production apply is already exact."""
-    if isinstance(op, DenseSectorOp):
-        return matvec_dense_flat
-    from .blocksparse import BlockSparseSectorOp, matvec_bs_exact_flat
-    if isinstance(op, BlockSparseSectorOp):
-        return matvec_bs_exact_flat
-    return None
 
 
 def make_sector_op(cfg: EDConfig, sec: Sector, hloc: np.ndarray, bath: Bath,
                    h_basis: Optional[np.ndarray] = None
                    ) -> Tuple[object, Callable]:
     backend = resolve_backend(cfg)
-    if backend == "pallas":
-        from .blocksparse import blocksparse_applicable
-        h = build_sector_hamiltonian(cfg, sec, hloc, bath, h_basis=h_basis)
-        if blocksparse_applicable(h):
-            from .blocksparse import build_blocksparse_op, matvec_bs_flat
-            return build_blocksparse_op(h), matvec_bs_flat
-        log.warning("ed_backend=pallas: sector %s not supported by the "
-                    "band-sparse kernel (phonons/Jx-Jp/VMEM); falling back "
-                    "to dense", (sec.nup, sec.ndw))
-        backend = "dense"
-        op = None
     if backend == "dense":
         op = build_dense_op(cfg, sec, hloc, bath, h_basis=h_basis)
         return op, _DENSE_APPLY[resolve_precision(cfg)]
     if backend == "direct":
-        if not direct_supported(cfg):
-            log.warning("ed_backend=direct: orbital-resolved (ed_total_ud=F) "
-                        "direct matvec not wired; falling back to stored ELL")
-            backend = "ell"
-        else:
-            op = build_direct_op(cfg, sec, hloc, bath, h_basis=h_basis)
-            return op, matvec_direct_flat
+        op = build_direct_op(cfg, sec, hloc, bath, h_basis=h_basis)
+        return op, matvec_direct_flat
     if backend != "ell":
         raise ValueError(f"unknown ed_backend {cfg.ed_backend!r}")
     op = build_sector_hamiltonian(cfg, sec, hloc, bath, h_basis=h_basis)

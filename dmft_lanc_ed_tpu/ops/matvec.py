@@ -1,18 +1,17 @@
 """Sector Hamiltonian matvec backends.
 
-TPU-native replacement of the SpMV engine (spMatVec_main,
+JAX replacement of the SpMV engine (spMatVec_main,
 ED_HAMILTONIAN_SPARSE_HxV.f90:391-485). The sector vector is a dense array
 ``v[DimPh, DimDw, DimUp]`` (phonon blocks outermost, up index fastest — the
 same linear order as the reference's ``i = iup + idw*DimUp + iph*DimUp*DimDw``).
 
-Formulation chosen by measurement on TPU v5e (experiments/matvec_variants.py,
-experiments/matvec_scan_bench.py): the ELL tables are applied **one ELL slot
-at a time as full row-gathers** — ``y += vals[:,k] * v[cols[:,k], :]`` — with
-the up-spin factor applied in the transposed layout so its gather is also a
-major-axis row gather. On TPU this lowers to contiguous-row gathers and runs
-~60x faster than the einsum-over-[N,K]-gather form (which materializes a
-[DimDw, DimUp, K] intermediate); it is also the layout the Pallas kernel
-shares. K (max entries/row) is ~2*Nbath — a static trip count.
+The ELL tables are applied **one ELL slot at a time as full row-gathers**
+— ``y += vals[:,k] * v[cols[:,k], :]`` — with the up-spin factor applied in
+the transposed layout so its gather is also a major-axis row gather: each
+gather moves whole contiguous rows, and no [DimDw, DimUp, K] intermediate
+is materialized (as the einsum-over-[N,K]-gather form would). K (max
+entries/row) is ~2*Nbath — a static trip count. Its speed on the H100
+against the dense backend is in PERF.md.
 
 All functions are pure and jit-compatible with static shapes.
 """

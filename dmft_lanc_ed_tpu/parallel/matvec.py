@@ -1,6 +1,6 @@
 """Sharded sector matvec + Lanczos over a device mesh.
 
-TPU-native re-design of the reference's intra-sector parallelism
+JAX re-design of the reference's intra-sector parallelism
 (SURVEY.md §2 parallelism list): the MPI "Dw-split" row decomposition with
 its `vector_transpose_MPI` AllToAllV sandwich (ED_HAMILTONIAN_COMMON.f90:53-118,
 ED_HAMILTONIAN_SPARSE_HxV.f90:568-694) becomes a `shard_map` over a 1-D mesh:
@@ -10,7 +10,7 @@ ED_HAMILTONIAN_SPARSE_HxV.f90:568-694) becomes a `shard_map` over a 1-D mesh:
   - dw-hop: lax.all_to_all transposes to an up-sharded layout
     [DimDw, DimUp/n], the dw ELL factor is applied fully locally, and a
     second all_to_all transposes back — exactly the reference's
-    transpose -> local SpMV -> transpose-back, riding ICI instead of MPI.
+    transpose -> local SpMV -> transpose-back, riding XLA collectives instead of MPI.
   - Lanczos dot products / norms: jnp.vdot on the sharded arrays (XLA
     inserts the psum), replacing P-ARPACK's internal reductions.
 
@@ -156,7 +156,7 @@ class ShardedLanczos:
     """Lanczos tridiagonalization driving the sharded matvec.
 
     Dot products on dw-sharded [DimDw, DimUp] arrays — XLA inserts the psum
-    over ICI (the P-ARPACK global-reduction analogue).
+    over the mesh (the P-ARPACK global-reduction analogue).
     """
 
     def __init__(self, h: SectorHamiltonian, mesh: Mesh):

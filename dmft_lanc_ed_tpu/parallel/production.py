@@ -1,6 +1,6 @@
 """Production dw-sharded sector solve — the path the solver actually uses.
 
-TPU-native re-design of the reference's intra-sector MPI parallelism as it
+JAX re-design of the reference's intra-sector MPI parallelism as it
 is *integrated* (not demonstrated): in the reference every large sector is
 diagonalized through the distributed matvec (P-ARPACK reverse communication
 driving spMatVec_mpi_main, ED_DIAG.f90:151-171) and the GF tridiagonal runs
@@ -12,7 +12,8 @@ SPMD partitioner turns
 
 - ``V @ H_up``   into a shard-local matmul (up index is contiguous/shard),
 - ``H_dw @ V``   into a collective contraction over the sharded dw axis
-  (all-gather or reduce-scatter over ICI — the vector_transpose_MPI
+  (all-gather or reduce-scatter, which XLA lowers to NCCL collectives
+  on the GPU — the vector_transpose_MPI
   analogue, ED_HAMILTONIAN_COMMON.f90:53-118),
 - Lanczos dots/norms into psum reductions (P-ARPACK's internal MPI_AllReduce
   analogue).
@@ -31,7 +32,6 @@ what `diag.py` / `gf.py` consume when ``cfg.mesh_shape`` is set.
 """
 from __future__ import annotations
 
-import logging
 import math
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
@@ -42,14 +42,10 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import EDConfig
-from ..ops.dense import (DenseSectorOp, matvec_dense, matvec_dense_fast,
-                         matvec_dense_mixed)
+from ..ops.dense import DenseSectorOp, matvec_dense, matvec_dense_mixed
 from .mesh import make_mesh, pad_to_multiple
 
-log = logging.getLogger("dmft_lanc_ed_tpu")
-
-_ND_APPLY = {"f64": matvec_dense, "mixed": matvec_dense_mixed,
-             "fast": matvec_dense_fast}
+_ND_APPLY = {"f64": matvec_dense, "mixed": matvec_dense_mixed}
 
 
 def _resolve_prec(cfg: "EDConfig") -> str:
@@ -65,10 +61,9 @@ def solver_mesh(cfg: EDConfig) -> Optional[Mesh]:
     if n <= 1:
         return None
     if len(jax.devices()) < n:
-        log.warning("mesh_shape=%s requests %d devices but only %d are "
-                    "visible — running unsharded", cfg.mesh_shape, n,
-                    len(jax.devices()))
-        return None
+        raise RuntimeError(
+            f"mesh_shape={cfg.mesh_shape} requests {n} devices but only "
+            f"{len(jax.devices())} are visible")
     return make_mesh(n)
 
 

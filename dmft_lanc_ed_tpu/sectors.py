@@ -1,6 +1,6 @@
 """Hilbert-space sector machinery.
 
-TPU-native re-design of the reference sector layer (ED_SETUP.f90:296-980,
+JAX re-design of the reference sector layer (ED_SETUP.f90:296-980,
 ED_AUX_FUNX.f90). All enumeration and index-map construction happens host-side
 with vectorized numpy bit tricks; the results are static-shape integer tables
 shipped to device once per sector. Sectors are identified by their quantum

@@ -14,6 +14,7 @@ counter + sp_spy_matrix gnuplot dumps (SURVEY.md §5.1) with:
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -63,6 +64,20 @@ class Timer:
         finally:
             self.times[name] = self.times.get(name, 0.0) + \
                 time.perf_counter() - t0
+
+
+def nvidia_smi() -> str:
+    """The cards' names and power limits, one line per card, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+    them. A child process that never touches JAX reads them, so it opens no
+    card. Every timing taken on a GPU is reported beside this line."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+        return r.stdout.strip() or f"nvidia-smi rc={r.returncode}"
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({e})"
 
 
 @contextlib.contextmanager

@@ -1,7 +1,7 @@
 // edcore — native host-side builder kernels for dmft_lanc_ed_tpu.
 //
 // The reference's native substrate is BLAS/LAPACK/P-ARPACK/MPI reached
-// through SciFortran; in this framework the device math is XLA/Pallas and
+// through SciFortran; in this framework the device math is XLA and
 // the remaining native-code obligation (SURVEY.md §2) is the host-side
 // Hilbert-space machinery: basis enumeration, hop-table (ELL) assembly and
 // run-length encoding, which sit on the DMFT critical path once per sector

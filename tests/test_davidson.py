@@ -86,8 +86,8 @@ def test_full_solve_dvdson_equals_arpack():
 def test_build_basis_fast_proj_orthogonality_and_accuracy():
     """fast_proj (f32-shadow CGS2 projections, ops/lanczos._build_basis_rr)
     keeps the basis orthogonal to ~the f32 floor and the polished Ritz
-    pairs exact — the contract that lets the TPU bucket solver run its
-    projections on the MXU."""
+    pairs exact — the contract that lets the mixed-precision bucket solver
+    run its projections in f32."""
     import jax.numpy as jnp
     from dmft_lanc_ed_tpu.bath import Bath
     from dmft_lanc_ed_tpu.config import EDConfig

@@ -1,6 +1,6 @@
 """Sharded-vs-serial equality tests on the virtual 8-device CPU mesh.
 
-The TPU analogue of the reference's serial-vs-MPI driver cross-checks
+The JAX analogue of the reference's serial-vs-MPI driver cross-checks
 (SURVEY.md §4.2): same sector, same vector, dw-sharded matvec must equal the
 single-device matvec to f64 roundoff.
 """

@@ -1,6 +1,6 @@
 """Serial-vs-sharded FULL-SOLVE equality on the virtual 8-device CPU mesh.
 
-The TPU analogue of the reference's serial-vs-MPI driver cross-checks
+The JAX analogue of the reference's serial-vs-MPI driver cross-checks
 (SURVEY.md §4.2), now through the *production* path: cfg.mesh_shape drives
 dw-sharded dense-backend solves inside diagonalize_impurity and the GF
 batcher (ED_DIAG.f90:151-171 + ED_GF_NORMAL.f90:224-238 analogue).
@@ -50,7 +50,7 @@ def test_full_solve_sharded_phonons():
 
 
 def test_sharded_mixed_precision():
-    """Sharding composes with the mixed-precision MXU path + f64 polish."""
+    """Sharding composes with the mixed-precision path + f64 polish."""
     kw = dict(norb=1, nbath=6, uloc=(2.2,), lanc_dim_threshold=16,
               lmats=32, lreal=8)
     cfg_s = ed.read_input(None, **kw)
@@ -162,78 +162,3 @@ def test_sharded_direct_large_sector_ground_state():
         v0=v0, vshape=sop.vshape, sharding=sop.sharding)
     # physical sanity: below the non-interacting-bound-free diagonal minimum
     assert evals[0] < 0.0
-
-
-@pytest.mark.slow
-def test_sharded_bs_ground_state_matches_arpack():
-    """Production dw-sharded band-sparse fused solve (VERDICT r4 item 1):
-    the flagship kernel drives a sharded two-stage ground state
-    (halo-exchanged fused matvec Lanczos + host f64 polish) and matches
-    host ARPACK on a 213k-state sector over a 2-device mesh."""
-    import scipy.sparse as sp
-    import scipy.sparse.linalg as spl
-    from dmft_lanc_ed_tpu.bath import init_bath
-    from dmft_lanc_ed_tpu.ops.blocksparse import build_blocksparse_op
-    from dmft_lanc_ed_tpu.parallel.bs_sharded import (
-        blocksparse_shardable, bs_sharded_ground_state)
-    from dmft_lanc_ed_tpu.parallel.mesh import make_mesh
-    from dmft_lanc_ed_tpu.sectors import SectorTable, qn
-
-    cfg = ed.read_input(None, norb=1, nbath=10, uloc=(2.0,))
-    sec = SectorTable(cfg).sector(qn(5, 5))       # 462 x 462 = 213k
-    bath = init_bath(cfg)
-    hloc = np.zeros((1, 1, 1, 1))
-    h = ed.build_sector_hamiltonian(cfg, sec, hloc, bath)
-    assert blocksparse_shardable(h, 2) is None
-    op = build_blocksparse_op(h)
-    mesh = make_mesh(2)
-    evals, evecs = bs_sharded_ground_state(cfg, op, mesh, 1, ncv=32)
-
-    def factor_csr(cols, vals, n):
-        cols = np.asarray(cols)
-        rows = np.repeat(np.arange(n), cols.shape[1])
-        m = sp.csr_matrix((np.asarray(vals, np.float64).ravel(),
-                           (rows, cols.ravel())), shape=(n, n))
-        m.eliminate_zeros()
-        return m
-
-    hup = factor_csr(h.up_cols, h.up_vals, sec.dim_up)
-    hdw = factor_csr(h.dw_cols, h.dw_vals, sec.dim_dw)
-    hfull = (sp.kron(sp.identity(sec.dim_dw, format="csr"), hup)
-             + sp.kron(hdw, sp.identity(sec.dim_up, format="csr"))
-             + sp.diags(np.asarray(h.diag, np.float64).ravel())).tocsr()
-    e_ref = float(spl.eigsh(hfull, k=1, which="SA", tol=1e-12,
-                            return_eigenvectors=False)[0])
-    assert abs(evals[0] - e_ref) < 1e-9
-    # the returned eigenvector is a true eigenvector of the exact operator
-    v = evecs[0]
-    r = hfull @ v - evals[0] * v
-    assert np.linalg.norm(r) < 1e-6 * max(1.0, abs(evals[0]))
-
-
-@pytest.mark.slow
-def test_diag_dispatches_sharded_bs(caplog):
-    """diagonalize_impurity routes a shardable sector through the sharded
-    band-sparse path under ed_backend=pallas + mesh (dispatch policy
-    logged), and the resulting ground state matches the serial solve."""
-    import logging
-    from dmft_lanc_ed_tpu.diag import DiagState, diagonalize_impurity
-    from dmft_lanc_ed_tpu.sectors import SectorTable, qn
-
-    kw = dict(norb=1, nbath=10, uloc=(2.0,), ed_backend="pallas",
-              lanc_dim_threshold=1024, ed_sectors=True,
-              ed_sectors_shift=0, ed_batch_sectors=False)
-    hloc = np.zeros((1, 1, 1, 1))
-    hint = [qn(5, 5)]
-    cfg_p = ed.read_input(None, mesh_shape=(2,), ed_shard_min_dimdw=2, **kw)
-    bath = ed.init_bath(cfg_p)
-    ctl = DiagState(sector_hint=hint)
-    with caplog.at_level(logging.INFO, logger="dmft_lanc_ed_tpu"):
-        states_p = diagonalize_impurity(cfg_p, SectorTable(cfg_p), hloc,
-                                        bath, ctl)
-    assert any("dw-sharded band-sparse fused solve" in r.message
-               for r in caplog.records)
-    cfg_s = ed.read_input(None, **kw)
-    states_s = diagonalize_impurity(cfg_s, SectorTable(cfg_s), hloc, bath,
-                                    DiagState(sector_hint=hint))
-    assert abs(states_p.emin - states_s.emin) < 1e-9
